@@ -2,7 +2,7 @@
 
 Parity target: the getopt loop and stderr UX of gpssim.c:1650-1852 and
 :2037-2366 — same flags, same defaults, same error messages, same channel
-table, plus TPU-native extensions prefixed with `--` (batching, kernel
+table, plus extensions prefixed with `--` (batching, kernel
 implementation, sharding).
 """
 
@@ -56,9 +56,9 @@ def _usage():
         "  -b <iq_bits>     I/Q data format [1/8/16] (default: 16)\n"
         "  -i               Disable ionospheric delay for spacecraft scenario\n"
         "  -v               Show details about simulated channels\n"
-        "TPU extensions:\n"
-        "  --impl <name>       Kernel: pallas (default), xla, or\n"
-        "                      pallas-sharded/xla-sharded (all local chips)\n"
+        "Extensions:\n"
+        "  --impl <name>       Kernel: xla (default) or xla-sharded\n"
+        "                      (all local devices)\n"
         "  --carrier-phase <m> Carrier NCO: float (default) or fixed\n"
         "                      (the reference's FLOAT_CARR_PHASE=0 build)\n"
         "  --batch-epochs <n>  Epochs per device dispatch (default: 20)\n"
@@ -69,7 +69,7 @@ def _usage():
         "  --resume            Skip shards already complete in --shard-dir\n"
         "  --concat            After sharding, assemble -o from the shards\n"
         "  --multihost <spec>  coord_addr:port,process_id,num_processes —\n"
-        "                      join a multi-host run over DCN\n"
+        "                      join a multi-host run\n"
         "  --profile <dir>     Write a jax.profiler trace of the run\n",
         file=sys.stderr)
 
@@ -130,6 +130,8 @@ class _DateTimeAction(argparse.Action):
 
 
 def parse_args(argv) -> tuple:
+    from gps_sdr_sim_tpu.runner import IMPLS
+
     argv = _merge_values(list(argv))
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("-e", dest="navfile", default="")
@@ -151,9 +153,7 @@ def parse_args(argv) -> tuple:
                     action=_BitsAction)
     ap.add_argument("-i", dest="disable_iono", action="store_true")
     ap.add_argument("-v", dest="verbose", action="store_true")
-    ap.add_argument("--impl", default="pallas",
-                    choices=("pallas", "xla", "pallas-sharded",
-                             "xla-sharded"))
+    ap.add_argument("--impl", default="xla", choices=IMPLS)
     ap.add_argument("--carrier-phase", default="float",
                     choices=("float", "fixed"),
                     help="carrier NCO: float (reference default) or the "
@@ -170,7 +170,7 @@ def parse_args(argv) -> tuple:
     ap.add_argument("--multihost", default="", metavar="COORD:PORT,ID,N",
                     help="join a multi-host run: coordinator address, this "
                          "process's index, total process count "
-                         "(jax.distributed over DCN)")
+                         "(jax.distributed)")
     ap.add_argument("--profile", default="", metavar="DIR",
                     help="write a jax.profiler trace of the run to DIR")
     try:
@@ -291,9 +291,8 @@ def main(argv=None) -> int:
     phases = {"main_start_unix": time.time()}
 
     if ns.multihost:
-        # Must run before ANY jax call that initializes the XLA backend
-        # (importing the kernels is already too late). Each process then
-        # writes its own disjoint time-shards over DCN coordination.
+        # Must run before ANY jax call that initializes the XLA backend.
+        # Each process then writes its own disjoint time-shards.
         import jax
 
         t_ph = time.time()
@@ -361,20 +360,8 @@ def main(argv=None) -> int:
             print(f"{prn:02d} {az:6.1f} {el:5.1f} {d:11.1f} {iono:5.1f}",
                   file=sys.stderr)
 
-    import os
-    if os.environ.get("JAX_PLATFORMS"):
-        # An installed TPU PJRT plugin can win platform selection even when
-        # JAX_PLATFORMS is set; pin the user's choice through jax.config.
-        import jax
-
-        try:
-            jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-        except Exception:
-            pass  # backend already initialized (e.g. --multihost)
-
     from gps_sdr_sim_tpu.utils.compcache import enable as enable_cache
     enable_cache()
-    from gps_sdr_sim_tpu.runner import run_simulation
 
     profiler = None
     if ns.profile:

@@ -62,21 +62,13 @@ SC16 = 16
 # Daily broadcast-ephemeris file capacity (gpssim.h:81)
 EPHEM_ARRAY_SIZE = 13
 
-# Kernel decomposition parameters (TPU-native; not in the reference).
+# Kernel decomposition parameters (not in the reference).
 # Sub-block length in samples: phase ramps are rebased (exact integer
 # accumulation of the 2^56 step) every SUBBLOCK samples so the in-kernel
 # 40-bit fixed-point closed form (three 16-bit limbs in int32 arithmetic)
-# never overflows. The env override is a perf-tuning knob; measured on the
-# target chip (interleaved best-of-3 ablation, 2026-08-17): 2048 -> ~506x,
-# 4096 -> ~433x realtime (8192 hangs Mosaic compilation), so 2048 is the
-# tuned default. The xla and pallas paths stay bit-identical to EACH OTHER
-# at any value; different values may flip isolated razor-edge samples
-# (~2^-43 phase difference from the per-sub-block truncation point) within
-# the oracle budget.
-import os as _os
-
-SUBBLOCK = int(_os.environ.get("GPS_SDR_SIM_SUBBLOCK", "2048"))
-if not (0 < SUBBLOCK <= 4096 and SUBBLOCK % 128 == 0):
-    raise ValueError("GPS_SDR_SIM_SUBBLOCK must be a positive multiple of "
-                     "128, at most 4096 (8192 hangs Mosaic compilation)")
+# never overflows (r < 2^11 keeps every partial product under 2^27). The
+# committed goldens and tests/golden/bench_checksum.txt were produced at
+# this value; another value may flip isolated razor-edge samples (~2^-43
+# phase difference from the per-sub-block truncation point).
+SUBBLOCK = 2048
 PHASE_FRAC_BITS = 40  # fixed-point resolution of the in-kernel phase ramp

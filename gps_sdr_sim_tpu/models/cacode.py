@@ -4,7 +4,7 @@ Parity target: codegen (gpssim.c:132-171). Two 10-stage LFSRs (G1, G2) in
 {-1,+1} arithmetic; the per-PRN G2 delay table selects the code phase offset.
 Output chips are in {0, 1} like the reference; callers convert to +/-1.
 
-TPU-first note: codes are generated once per scenario on the host (32 x 1023
+Device note: codes are generated once per scenario on the host (32 x 1023
 ints) and shipped to the device as a lookup table; there is nothing to
 accelerate here.
 """

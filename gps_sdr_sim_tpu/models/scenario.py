@@ -7,14 +7,14 @@ allocation (allocateChannel, gpssim.c:1572-1648), the per-epoch observable
 updates (computeRange + computeCodePhase, gpssim.c:2156-2188), and the
 30-second navigation-message / re-allocation cadence (gpssim.c:2293-2345).
 
-TPU-native reformulation: instead of carrying a per-sample NCO, the engine
+Data-parallel reformulation: instead of carrying a per-sample NCO, the engine
 emits, per epoch and channel, the closed-form phase-ramp parameters
 (f_carr, f_code, code_phase0, carr_phase0, nav-bit counter M0, gain) plus
 per-segment C/A chip and nav-bit tables. Carrier phase continuity across
 epochs (the only cross-epoch recurrence in the reference, gpssim.c:2244-2250)
 is propagated analytically in float64 on the host. Every epoch is then an
 independent, embarrassingly parallel unit of device work, which is what
-makes time-block sharding over a TPU mesh possible.
+makes time-block sharding over a device mesh possible.
 """
 
 from __future__ import annotations

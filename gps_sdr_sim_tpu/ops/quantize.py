@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-_BIT_WEIGHTS = jnp.array([128, 64, 32, 16, 8, 4, 2, 1], dtype=jnp.int32)
+_BIT_WEIGHTS = np.array([128, 64, 32, 16, 8, 4, 2, 1], dtype=np.int32)
 
 
 @jax.jit
@@ -53,56 +54,3 @@ def pack(iq: jax.Array, data_format: int) -> jax.Array:
     if data_format == 1:
         return pack_sc01(iq)
     raise ValueError(f"Invalid I/Q data format: {data_format}")
-
-
-# ---------------------------------------------------------------------------
-# Packed-word-stream helpers (the kernel-epilogue fast path,
-# synth_pallas.synth_staged_packed: [B, W] int32 little-endian words that
-# ARE the output byte stream, with per-epoch tile padding past the valid
-# prefix of packed_bytes(n_out, fmt) bytes).
-# ---------------------------------------------------------------------------
-
-from functools import partial  # noqa: E402
-
-import numpy as np  # noqa: E402
-
-
-def words_to_bytes(words: np.ndarray, n_out: int, fmt: int) -> np.ndarray:
-    """Host [B, W] int32 words -> [B, valid_bytes] uint8 view (zero-copy
-    until the caller materializes it)."""
-    from gps_sdr_sim_tpu.ops.synth_pallas import packed_bytes
-
-    b = words.shape[0]
-    return words.view(np.uint8).reshape(b, -1)[:, :packed_bytes(n_out, fmt)]
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3))
-def checksum_packed(words: jax.Array, valid_epochs: int, n_out: int,
-                    fmt: int) -> tuple[jax.Array, jax.Array]:
-    """(sum, nonzero_count) over the VALID region of a packed word batch.
-
-    The sum matches the legacy per-format checksum exactly: SC16 sums the
-    int16 samples, SC08 the int8 samples, SC01 the packed uint8 bytes —
-    so golden values carry over from the unpacked path. nonzero counts
-    nonzero ELEMENTS of the same typed view (int16 samples / int8 samples
-    / packed bytes), a cheap dropped-batch detector (a synthesized-silence
-    batch has sum 0 AND nonzero 0; a real batch always has signal).
-
-    Both reductions read ONE typed view so XLA fuses them into a single
-    pass over the stream: the earlier separate uint8 nonzero-byte pass
-    cost ~30% of end-to-end bench throughput (same-window A/B vs the
-    round-2 sum-only path, BASELINE.md reconciliation note)."""
-    from gps_sdr_sim_tpu.ops.synth_pallas import packed_bytes
-
-    w = words[:valid_epochs]
-    if fmt == 16:
-        v = jax.lax.bitcast_convert_type(w, jnp.int16).reshape(
-            w.shape[0], -1)[:, :n_out * 2]
-    elif fmt == 8:
-        v = jax.lax.bitcast_convert_type(w, jnp.int8).reshape(
-            w.shape[0], -1)[:, :n_out * 2]
-    else:
-        v = jax.lax.bitcast_convert_type(w, jnp.uint8).reshape(
-            w.shape[0], -1)[:, :packed_bytes(n_out, fmt)]
-    return (jnp.sum(v.astype(jnp.int32)),
-            jnp.sum((v != 0).astype(jnp.int32)))

@@ -1,25 +1,22 @@
-"""Gather-free XLA IQ synthesis kernel (the TPU fast path).
+"""XLA IQ synthesis kernel: the one device path, on every platform.
 
 The per-sample hot loop of gpssim.c:2190-2264 re-expressed as a closed-form,
 fully data-parallel evaluation over [epochs, sub-blocks, samples], summed
-over channels. TPU constraint: vectorized table gathers (jnp.take) lower to
-catastrophically slow code on TPU (~100x the cost of the arithmetic), so
-every lookup is replaced by VPU arithmetic:
+over channels:
 
  - code-phase / carrier-phase ramps: exact 40-bit fixed point in three
    int32 limbs (see ops/plan.py);
- - C/A chip lookup: chips bit-packed into 32 uint32 words per channel; the
-   word is selected by a 5-level binary where-tree on the chip index (31
-   selects against broadcast scalars), then one shift+mask extracts the chip;
+ - C/A chip: chips bit-packed into 32 uint32 words per channel; one table
+   lookup fetches the word, one shift+mask extracts the chip;
  - nav data bit: only <= 7 consecutive bits are reachable inside one epoch,
    so the host ships an 8-bit window per (epoch, channel) and the kernel
    shifts into it;
- - sin/cos mixer table (sinTable512/cosTable512, gpssim.c:15-83): computed
-   directly as round(250*sin(2*pi*(i+0.5)/512)) on the VPU. Because float32
-   transcendentals could round differently from the reference table near
-   .5 boundaries, we evaluate all 512 indices once per backend, diff against
-   the exact table, and bake the (rare) corrections into the kernel as
-   where-patches -- making the computed table bit-identical to the C arrays.
+ - sin/cos mixer: a lookup of the exact sinTable512/cosTable512 values
+   (gpssim.c:15-83, ops/tables.py), so no float rounding can differ
+   between backends.
+
+Everything is int32 except one float32 floor per divide-by-constant, which
+is exact for the operand ranges involved (T < 2^24).
 """
 
 from __future__ import annotations
@@ -35,72 +32,22 @@ from gps_sdr_sim_tpu.ops.plan import DeviceBatch
 from gps_sdr_sim_tpu.ops.tables import COS_TABLE512, SIN_TABLE512
 
 _INV1023 = np.float32(1.0 / 1023.0)
-_TWO_PI_512 = np.float32(2.0 * np.pi / 512.0)
 
 
-def _sin_poly(x):
-    """sin(x) for x in (0, pi/2]: degree-9 Taylor, |err| < 3e-6 here."""
-    y = x * x
-    p = 1.0 + y * (np.float32(-1.0 / 6.0)
-                   + y * (np.float32(1.0 / 120.0)
-                          + y * (np.float32(-1.0 / 5040.0)
-                                 + y * np.float32(1.0 / 362880.0))))
-    return x * p
+def ca_chip(words, chip):
+    """Chip `chip` (0..1022) of one channel's [32] bit-packed C/A words, 0/1."""
+    word = jnp.take(words, chip >> 5, mode="clip")
+    return (word >> (chip & 31)) & 1
 
 
-def _trig_formula(i_tab):
-    """round(250*sin/cos(2*pi*(i+0.5)/512)) as int32 (half away from zero).
-
-    Quadrant-folded polynomial instead of two transcendentals: on TPU the
-    Mosaic sin/cos lowering was 42% of the whole synthesis kernel. With
-    q = i>>7, r = i&127 the table angle theta = (i+0.5)*2pi/512 satisfies
-      sin(theta) = [+up, +dn, -up, -dn][q],  cos = sin(theta + pi/2) ->
-      same with q+1,
-    where up = sin((r+0.5)d), dn = sin((127.5-r)d), d = 2pi/512 — so ONE
-    pair of first-quadrant poly evaluations yields both outputs. Any
-    residual rounding difference vs the reference tables is absorbed by
-    the per-backend baked corrections (_trig_corrections)."""
-    r = (i_tab & 127).astype(jnp.float32)
-    q = i_tab >> 7
-    up = _sin_poly((r + 0.5) * _TWO_PI_512)
-    dn = _sin_poly((np.float32(127.5) - r) * _TWO_PI_512)
-
-    mag_s = jnp.where((q & 1) == 0, up, dn)
-    s = 250.0 * jnp.where(q >= 2, -mag_s, mag_s)
-    qc = (q + 1) & 3
-    mag_c = jnp.where((qc & 1) == 0, up, dn)
-    c = 250.0 * jnp.where(qc >= 2, -mag_c, mag_c)
-
-    sin_v = (s + jnp.sign(s) * 0.5).astype(jnp.int32)
-    cos_v = (c + jnp.sign(c) * 0.5).astype(jnp.int32)
-    return sin_v, cos_v
-
-
-@lru_cache(maxsize=None)
-def _trig_corrections(backend: str):
-    """Indices/deltas where this backend's f32 trig disagrees with the table."""
-    idx = jnp.arange(512, dtype=jnp.int32)
-    sin_v, cos_v = jax.jit(_trig_formula, backend=backend)(idx)
-    ds = SIN_TABLE512 - np.asarray(sin_v)
-    dc = COS_TABLE512 - np.asarray(cos_v)
-    s_nz = np.nonzero(ds)[0]
-    c_nz = np.nonzero(dc)[0]
-    return (tuple((int(i), int(ds[i])) for i in s_nz),
-            tuple((int(i), int(dc[i])) for i in c_nz))
-
-
-def _select32(words, idx5):
-    """Select words[idx5] from 32 broadcast scalars via a binary where-tree."""
-    vals = [words[w] for w in range(32)]
-    for level in range(5):
-        bit = (idx5 >> level) & 1
-        vals = [jnp.where(bit == 1, vals[2 * i + 1], vals[2 * i])
-                for i in range(len(vals) // 2)]
-    return vals[0]
+def trig_lookup(i_tab):
+    """(sinTable512[i_tab], cosTable512[i_tab]) as int32, i_tab in 0..511."""
+    return (jnp.take(jnp.asarray(SIN_TABLE512), i_tab, mode="clip"),
+            jnp.take(jnp.asarray(COS_TABLE512), i_tab, mode="clip"))
 
 
 def _channel_contribution(c, code_s, code_p, carr_s, carr_p, t_base, m0, b0,
-                          navbits, gain, ca_words, sin_fix, cos_fix):
+                          navbits, gain, ca_words):
     """One channel's (I, Q) int32 contribution over [B, SB, R]."""
     r = jnp.arange(SUBBLOCK, dtype=jnp.int32)
 
@@ -116,11 +63,7 @@ def _channel_contribution(c, code_s, code_p, carr_s, carr_p, t_base, m0, b0,
     # --- wrap count and chip index (exact in float32 for T < 2^24) ---
     M = jnp.floor((T.astype(jnp.float32) + 0.5) * _INV1023).astype(jnp.int32)
     chip = T - CA_SEQ_LEN * M
-
-    # --- C/A chip from bit-packed words ---
-    word = _select32(ca_words[c], chip >> 5)
-    chip_bit = (word >> (chip & 31)) & 1
-    ca_val = 2 * chip_bit - 1
+    ca_val = 2 * ca_chip(ca_words[c], chip) - 1
 
     # --- nav data bit from the per-epoch 8-bit window ---
     mg = m0[:, c, None, None] + M
@@ -129,25 +72,21 @@ def _channel_contribution(c, code_s, code_p, carr_s, carr_p, t_base, m0, b0,
     j = bidx - b0[:, c, None, None]
     bit_val = 2 * ((navbits[:, c, None, None] >> j) & 1) - 1
 
-    # --- carrier-phase ramp -> 9-bit index -> computed trig table ---
+    # --- carrier-phase ramp -> 9-bit index -> trig tables ---
     w0 = carr_p[:, :, c, 0, None] + r * carr_s[:, None, c, 0, None]
     w1 = carr_p[:, :, c, 1, None] + r * carr_s[:, None, c, 1, None]
     w2 = carr_p[:, :, c, 2, None] + r * carr_s[:, None, c, 2, None]
     w1 = w1 + (w0 >> 16)
     w2 = w2 + (w1 >> 16)
     i_tab = ((w2 << 1) | ((w1 >> 15) & 1)) & 0x1FF
-    sin_v, cos_v = _trig_formula(i_tab)
-    for i0, dv in sin_fix:
-        sin_v = sin_v + dv * (i_tab == i0)
-    for i0, dv in cos_fix:
-        cos_v = cos_v + dv * (i_tab == i0)
+    sin_v, cos_v = trig_lookup(i_tab)
 
     m = bit_val * ca_val * gain[:, c, None, None]
     return m * cos_v, m * sin_v
 
 
 def accumulate(code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
-               ca_words, *, n_chan: int, sin_fix, cos_fix):
+               ca_words, *, n_chan: int):
     """Sum the int32 I/Q contributions of `n_chan` channels.
 
     Returns (iacc, qacc), each [B, SB, SUBBLOCK] int32 — the accumulator of
@@ -156,20 +95,17 @@ def accumulate(code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
     devices first (the reference sums all channels before quantizing,
     gpssim.c:2192-2259, so reduction placement is correctness-relevant).
     """
+    args = (code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
+            ca_words)
+
     def body(c, accs):
-        iacc, qacc = accs
-        ic, qc = _channel_contribution(
-            c, code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits,
-            gain, ca_words, sin_fix, cos_fix)
-        return iacc + ic, qacc + qc
+        ic, qc = _channel_contribution(c, *args)
+        return accs[0] + ic, accs[1] + qc
 
     # Channel 0 seeds the carry (instead of jnp.zeros) so the accumulator
     # inherits the inputs' varying-axes type under shard_map — a zeros init
     # is device-invariant and jax rejects the fori_loop carry mismatch.
-    init = _channel_contribution(
-        0, code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
-        ca_words, sin_fix, cos_fix)
-    return jax.lax.fori_loop(1, n_chan, body, init)
+    return jax.lax.fori_loop(1, n_chan, body, _channel_contribution(0, *args))
 
 
 def quantize_iq(iacc, qacc, n_out: int):
@@ -181,15 +117,13 @@ def quantize_iq(iacc, qacc, n_out: int):
 
 
 @lru_cache(maxsize=None)
-def _get_synth_fn(n_out: int, n_chan: int, backend: str):
-    sin_fix, cos_fix = _trig_corrections(backend)
-
+def _get_synth_fn(n_out: int, n_chan: int):
     @jax.jit
     def synth(code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
               ca_words):
         iacc, qacc = accumulate(
             code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
-            ca_words, n_chan=n_chan, sin_fix=sin_fix, cos_fix=cos_fix)
+            ca_words, n_chan=n_chan)
         return quantize_iq(iacc, qacc, n_out)
 
     return synth
@@ -198,8 +132,7 @@ def _get_synth_fn(n_out: int, n_chan: int, backend: str):
 def synth_iq16(code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
                ca_words, *, n_out: int):
     """Synthesize int16 IQ for a batch of epochs; returns [B, n_out, 2]."""
-    n_chan = int(gain.shape[1])
-    fn = _get_synth_fn(n_out, n_chan, jax.default_backend())
+    fn = _get_synth_fn(n_out, int(gain.shape[1]))
     return fn(code_s, code_p, carr_s, carr_p, t_base, m0, b0, navbits, gain,
               ca_words)
 

@@ -6,9 +6,8 @@ rounding boundary (value 105.50007) where the original table rounds *down*;
 we apply those as explicit corrections. The cos table is exactly the sin
 table rotated by 128 entries (verified against the reference binary).
 
-Both device kernels recompute these values on the VPU from the closed-form
-rule (gathers are slow on TPU); the _BOUNDARY_FIX entries become per-backend
-baked corrections (synth_jnp._trig_corrections).
+The synthesis kernel looks these tables up directly
+(ops/synth_jnp.py::trig_lookup).
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ Axes:
            propagated analytically on the host (models/scenario.py).
   'chan' — channel parallelism: the per-channel sum (gpssim.c:2195-2209)
            split across devices; partial int32 accumulators are psum-reduced
-           over ICI before quantization (see parallel/shard.py).
+           before quantization (see parallel/shard.py).
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ def make_mesh(n_time: int, n_chan: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build an (n_time, n_chan) mesh over the first n_time*n_chan devices.
 
-    The channel axis rides the fastest-varying device dimension so that, on
-    a real TPU slice, the psum over 'chan' maps to nearest-neighbour ICI
-    links while 'time' (no collectives) spans the rest of the slice.
+    The cards of one host are joined all to all (NVLink), so any device
+    order serves: the shape follows the algorithm alone. Only the psum over
+    'chan' communicates (a NCCL all-reduce); 'time' needs no collectives.
     """
     if devices is None:
         devices = jax.devices()

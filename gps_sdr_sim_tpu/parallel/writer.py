@@ -1,7 +1,7 @@
 """Multi-host sharded output: per-host ordered shard files + manifest.
 
 The reference streams one file sequentially (gpssim.c:2101-2111,2266-2288).
-At pod scale the sample stream is written as N contiguous time-shards, one
+Across hosts the sample stream is written as N contiguous time-shards, one
 file per shard, described by a JSON manifest. Because every epoch is
 independently recomputable from the scenario config (models/scenario.py),
 the manifest doubles as the checkpoint: failure recovery = regenerate the
@@ -121,7 +121,7 @@ def plan_epoch_shards(total_epochs: int, n_shards: int):
 
 def run_simulation_sharded(scn: Scenario, out_dir: str,
                            n_shards: Optional[int] = None,
-                           batch_epochs: int = 20, impl: str = "pallas",
+                           batch_epochs: int = 20, impl: str = "xla",
                            resume: bool = False,
                            log=None) -> "tuple[Manifest, RunStats]":
     """Write scenario output as time-shards under `out_dir` + manifest.json.

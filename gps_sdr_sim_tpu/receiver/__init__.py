@@ -4,7 +4,7 @@ path.
 The reference validates its synthesized signal by feeding SDR hardware into
 real receivers (u-center.png, ublox.jpg, rtk/ RTKLIB datasets — see
 SURVEY.md §4). Having no hardware in the loop, this package closes the same
-loop in software, TPU-style: FFT parallel code-phase acquisition
+loop in software, as device programs: FFT parallel code-phase acquisition
 (acquire.py), vmapped DLL/PLL tracking as a lax.scan (track.py), and
 nav-message bit/frame sync + IS-GPS-200 parity-checked decode (navdec.py).
 
@@ -15,7 +15,6 @@ transmitted nav message — runs in tests/test_receiver.py.
 
 from gps_sdr_sim_tpu.receiver.frontend import load_iq
 from gps_sdr_sim_tpu.receiver.acquire import acquire
-from gps_sdr_sim_tpu.receiver.acquire_mxu import acquire_mxu
 from gps_sdr_sim_tpu.receiver.track import track
 from gps_sdr_sim_tpu.receiver.navdec import (
     bit_sync,
@@ -24,5 +23,5 @@ from gps_sdr_sim_tpu.receiver.navdec import (
     parity_ok,
 )
 
-__all__ = ["load_iq", "acquire", "acquire_mxu", "track", "bit_sync",
+__all__ = ["load_iq", "acquire", "track", "bit_sync",
            "decode_bits", "frame_sync", "parity_ok"]

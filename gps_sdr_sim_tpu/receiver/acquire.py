@@ -7,7 +7,7 @@ period via FFTs:
 
 evaluated for all code phases at once. PRNs ride a vmap axis and Doppler
 bins a batch axis, so the whole search is a single [n_prn, n_dopp, S]
-device program — MXU/VPU-friendly, no Python loops over the grid.
+device program on the default device, with no Python loops over the grid.
 
 Non-coherent integration over `n_blocks` consecutive milliseconds rides out
 nav-bit sign flips.
@@ -54,7 +54,7 @@ def _acq_fn(s: int, n_dopp: int, n_blocks: int):
 
         # Accumulate non-coherent power block by block: peak memory is one
         # [P, D, S] correlation cube instead of [P, D, B, S] (>0.5 GB at
-        # CLI defaults on the CPU fallback path).
+        # CLI defaults).
         def block(b, power):
             xf = jnp.fft.fft(x_blocks[b][None, :] * carr, axis=-1)  # [D, S]
             corr = jnp.fft.ifft(
@@ -97,7 +97,7 @@ def _fine_doppler(x: np.ndarray, fs: float, code: np.ndarray,
 
 def search_prep(x: np.ndarray, fs: float, prns: Optional[Sequence[int]],
                 dopp_max: float, dopp_step: float, n_blocks: int):
-    """Shared search setup: PRN list, 1 ms size, Doppler grid, ms blocks."""
+    """Search setup: PRN list, 1 ms size, Doppler grid, ms blocks."""
     if prns is None:
         prns = range(1, 33)
     prns = list(prns)
@@ -113,7 +113,7 @@ def search_prep(x: np.ndarray, fs: float, prns: Optional[Sequence[int]],
 
 def assemble_results(x, fs, prns, codes, s, dopp, peak, arg, mean,
                      threshold: float, fine: bool) -> List[AcqResult]:
-    """Shared detection contract: peak/arg/mean per PRN -> AcqResults."""
+    """Detection contract: peak/arg/mean per PRN -> AcqResults."""
     out = []
     for i, prn in enumerate(prns):
         d_idx, c_idx = divmod(int(arg[i]), s)
@@ -140,11 +140,9 @@ def acquire(x: np.ndarray, fs: float,
     code_fft = np.fft.fft(codes, axis=-1).astype(np.complex64)
 
     run = _acq_fn(s, len(dopp), n_blocks)
-    from gps_sdr_sim_tpu.receiver.device import rx_device
-    with rx_device():
-        peak, arg, mean = jax.device_get(
-            run(jnp.asarray(xb), jnp.asarray(code_fft), jnp.asarray(dopp),
-                jnp.float32(fs)))
+    peak, arg, mean = jax.device_get(
+        run(jnp.asarray(xb), jnp.asarray(code_fft), jnp.asarray(dopp),
+            jnp.float32(fs)))
 
     return assemble_results(x, fs, prns, codes, s, dopp, peak, arg, mean,
                             threshold, fine)

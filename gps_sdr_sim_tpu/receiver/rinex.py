@@ -126,7 +126,7 @@ def obs_epochs(res: TrackResult, frames=None, interval: float = 1.0):
 def write_obs(fp, res: TrackResult, frames=None, interval: float = 1.0,
               era: int = DEFAULT_ERA,
               approx_xyz: Optional[np.ndarray] = None,
-              marker: str = "GPS-SDR-SIM-TPU") -> int:
+              marker: str = "GPS-SDR-SIM") -> int:
     """Write a RINEX 2.11 observation file; returns the epoch count."""
     sats, t_obs, C1, L1, D1, S1, week = obs_epochs(res, frames, interval)
     if week is None:

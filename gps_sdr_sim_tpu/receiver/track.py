@@ -1,8 +1,8 @@
 """Closed-loop DLL/PLL tracking, vmapped over channels, scanned over time.
 
 Classic scalar GPS tracking (early/prompt/late correlators, normalized
-envelope DLL, Costas PLL with carrier-aided code NCO) expressed the
-TPU-native way: the per-millisecond update is one pure function of a small
+envelope DLL, Costas PLL with carrier-aided code NCO) expressed as one
+device program: the per-millisecond update is one pure function of a small
 state vector, `jax.vmap` runs every channel in lockstep, and `jax.lax.scan`
 unrolls the time axis inside a single compiled program — no data-dependent
 Python control flow.
@@ -55,9 +55,7 @@ def _track_fn(s: int, pll_bw: float, dll_bw: float):
     ki_d, kp_d = _loop_gains(dll_bw, T)
 
     def step(state, x_ms, ca, f_basis, fs):
-        # All-real arithmetic (re/im carried separately): some TPU PJRT
-        # backends reject complex dtypes outright, and the VPU prefers the
-        # explicit form anyway.
+        # All-real arithmetic (re/im carried separately).
         chip_i, chip_f, carr_ph, f_wipe, i_pll, d_nco, i_dll = state
         x_re, x_im = x_ms
         k = jnp.arange(s, dtype=jnp.float32)

@@ -1,19 +1,15 @@
 import os
 
-# Tests run on CPU with a virtual 8-device mesh so sharding code paths are
-# exercised without TPU hardware. XLA_FLAGS must be set before the first
-# backend initialization; the platform choice additionally goes through
-# jax.config because a site customization may have imported jax (and baked
-# in JAX_PLATFORMS from the environment) before this conftest runs.
-os.environ["JAX_PLATFORMS"] = "cpu"
+# Tests run on the CPU with a virtual 8-device mesh so sharding code paths
+# are exercised without accelerator hardware. The CPU is chosen only when
+# JAX_PLATFORMS is unset: tests marked `gpu` need the card and run on it
+# with JAX_PLATFORMS=cuda,cpu (`python -m pytest -m gpu tests/`). XLA_FLAGS
+# must be set before the first backend initialization.
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8").strip()
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import pathlib
 
@@ -47,3 +43,14 @@ def brdc_path():
     p = GOLDEN / "brdc3540.14n"
     assert p.exists()
     return str(p)
+
+
+@pytest.fixture(scope="session")
+def gpu():
+    """The default GPU device; skips where JAX's default backend is not a
+    GPU (the CPU test runs)."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: python -m pytest -m gpu tests/ on the card")
+    return jax.devices()[0]

@@ -1,8 +1,10 @@
 """CLI contract tests: flag parity with the reference getopt surface
-(gpssim.c:1650-1852) plus the TPU sharding extensions.
+(gpssim.c:1650-1852) plus the sharding extensions.
 """
 
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -144,3 +146,62 @@ def test_zero_duration_dynamic_writes_nothing(tmp_path, capsys):
     assert out.stat().st_size == 0
     err = capsys.readouterr().err
     assert "Duration = 0.0" in err
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas-sharded"])
+def test_impl_rejects_removed_values(capsys, impl):
+    with pytest.raises(SystemExit):
+        main(["-e", NAV, "-d", "0.1", "--impl", impl])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_json_summary_names_the_device(tmp_path):
+    import json
+
+    summary = tmp_path / "run.json"
+    assert main(ARGS + ["-o", str(tmp_path / "out.bin"),
+                        "--json-summary", str(summary)]) == 0
+    d = json.loads(summary.read_text())
+    assert d["platform"] == "cpu"
+    assert d["device_count"] == 8  # the virtual CPU mesh of conftest.py
+    assert isinstance(d["device_kind"], str) and d["device_kind"]
+    assert d["total_samples"] == 2 * 100000
+
+
+_CACHE_PROBE = """
+import json, os, jax, jax.numpy as jnp
+from gps_sdr_sim_tpu.utils import compcache
+compcache.enable()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+jax.jit(lambda x: jnp.cumsum(x * 3) + 1)(jnp.arange(7.0)).block_until_ready()
+print(json.dumps({"dir": jax.config.jax_compilation_cache_dir,
+                  "default": compcache.DEFAULT_DIR}))
+"""
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_location(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and the code sets
+    no other; unset, the cache is the checkout's fixed .jax_cache/."""
+    import json
+    import os
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(pathlib.Path(__file__).parent.parent))
+    env.pop("GPS_SDR_SIM_NO_CACHE", None)
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    cache = tmp_path / "cache"
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(cache)
+    r = subprocess.run([sys.executable, "-c", _CACHE_PROBE], env=env,
+                       capture_output=True, text=True, timeout=300,
+                       cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    d = json.loads(r.stdout.strip().splitlines()[-1])
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert d["default"] == str(root / ".jax_cache")
+    if env_dir:
+        assert d["dir"] == str(cache)
+        assert any(cache.iterdir())  # the compiled entry landed there
+    else:
+        assert d["dir"] == d["default"]

@@ -32,7 +32,7 @@ def _free_port() -> int:
 def test_two_process_sharded_run_matches_single(tmp_path):
     env = {"PATH": "/usr/bin:/bin", "HOME": "/root",
            "JAX_PLATFORMS": "cpu",
-           "GPS_SDR_SIM_TPU_NO_CACHE": "1",
+           "GPS_SDR_SIM_NO_CACHE": "1",
            "PYTHONPATH": str(ROOT)}
 
     single = tmp_path / "single.bin"

@@ -109,7 +109,7 @@ def test_ephemeris_set_advance_matches_oracle(oracle_bin, tmp_path):
 # ---------------------------------------------------------------------------
 # CLI stderr fuzz: malformed invocations must reproduce the reference's
 # error strings and exit codes (gpssim.c:1756-1879 + file-open errors).
-# The usage text itself legitimately differs (TPU extension flags), so each
+# The usage text itself legitimately differs (extension flags), so each
 # case compares the diagnostic lines BEFORE any usage dump byte-for-byte
 # after stripping the getopt argv[0] prefix.
 # ---------------------------------------------------------------------------

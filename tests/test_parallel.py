@@ -23,6 +23,7 @@ from gps_sdr_sim_tpu.parallel import (
     run_simulation_sharded,
     synth_batch_sharded,
 )
+from gps_sdr_sim_tpu.parallel.writer import bytes_per_epoch
 from gps_sdr_sim_tpu.runner import run_simulation
 from gps_sdr_sim_tpu.utils.coord import llh2xyz
 
@@ -131,45 +132,7 @@ def test_epoch_range_split_anywhere_bitexact(scenario):
         assert parts.getvalue() == whole.getvalue(), (k, be)
 
 
-@pytest.mark.parametrize("n_time,n_chan",
-                         [(2, 1), (8, 1), (1, 8), (4, 2), (2, 4)])
-def test_pallas_sharded_matches_unsharded(scenario, batch, n_time, n_chan):
-    """Fused kernel over any (time, chan) factorization == single device.
-
-    chan > 1 exercises the raw-accumulator kernel variant + pre-quantization
-    psum over the channel axis (the reference's reduction placement,
-    gpssim.c:2192-2259)."""
-    from gps_sdr_sim_tpu.ops import synth_pallas
-    from gps_sdr_sim_tpu.parallel import synth_pallas_sharded
-
-    n = scenario.iq_buff_size
-    mesh = auto_mesh(n_time * n_chan, n_chan)
-    got = np.asarray(synth_pallas_sharded(batch, n, mesh))
-    want = np.asarray(synth_pallas.synth_batch(batch, n))
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("n_time,n_chan",
-                         [(2, 1), (8, 1), (1, 8), (4, 2), (2, 4)])
-def test_wire_sharded_matches_unsharded(scenario, n_time, n_chan):
-    """The compact-wire pod path (per-device rebase + fused kernel +
-    pre-quantization chan psum) == single-device synth_epochs, bit-exact,
-    for every (time, chan) factorization — including channel counts that
-    need zero-gain channel padding to divide the 'chan' axis."""
-    from gps_sdr_sim_tpu.ops import synth_pallas
-    from gps_sdr_sim_tpu.ops.plan import pad_epochs, plan_epochs
-    from gps_sdr_sim_tpu.parallel import synth_epochs_sharded
-
-    seg = scenario.segments[0]
-    n = scenario.iq_buff_size
-    eb = pad_epochs(plan_epochs(seg, 0, seg.n_epochs, scenario.delt), 8)
-    want = np.asarray(synth_pallas.synth_epochs(eb, n))
-    mesh = auto_mesh(n_time * n_chan, n_chan)
-    got = np.asarray(synth_epochs_sharded(eb, n, mesh))
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("impl", ["xla-sharded", "pallas-sharded"])
+@pytest.mark.parametrize("impl", ["xla-sharded"])
 def test_runner_sharded_impls_match_single(scenario, impl):
     """run_simulation over the full local (virtual) mesh == single device."""
     ref = io.BytesIO()
@@ -214,48 +177,49 @@ def test_sharded_run_returns_aggregated_stats(tmp_path):
     assert stats.wall_seconds > 0
 
 
-def test_fetch_with_retry_recomputes_on_transient_device_error():
-    """runner._fetch_with_retry: a transient XlaRuntimeError at readback
-    re-synthesizes the batch (every batch is independently recomputable);
-    non-transient exception types propagate immediately."""
-    from gps_sdr_sim_tpu.runner import _fetch_with_retry
+@pytest.mark.parametrize("data_format", [16, 8, 1])
+def test_xla_sharded_matches_single_per_format(data_format):
+    """The runner's xla-sharded impl over all 8 (virtual) devices writes the
+    single-device byte stream in every output format; 3 epochs on an
+    8-wide time axis also exercise the silent time padding."""
+    cfg = ScenarioConfig(nav_file=str(DATA / "brdc3540.14n"),
+                         static_xyz=TOKYO, duration=0.4, samp_freq=SAMP,
+                         data_format=data_format)
+    scn = build_scenario(cfg)
+    outs = []
+    for impl in ("xla", "xla-sharded"):
+        buf = io.BytesIO()
+        run_simulation(scn, buf, batch_epochs=3, log=lambda s: None,
+                       impl=impl)
+        outs.append(buf.getvalue())
+    assert len(outs[0]) == scn.n_output_epochs * bytes_per_epoch(
+        scn.iq_buff_size, data_format)
+    assert outs[1] == outs[0]
 
-    class XlaRuntimeError(Exception):
-        pass
 
-    class FlakyDev:
-        def __init__(self, fails):
-            self.fails = fails
+@pytest.mark.parametrize("case", ["mesh_chan", "devices", "batch_chan"])
+def test_channel_count_errors(batch, case):
+    """Channel sharding refuses splits that do not divide the channels."""
+    from gps_sdr_sim_tpu.parallel import make_mesh
 
-        def __array__(self, dtype=None, copy=None):
-            if self.fails > 0:
-                self.fails -= 1
-                raise XlaRuntimeError("INTERNAL: transient burst")
-            return np.arange(4)
+    with pytest.raises(ValueError):
+        if case == "mesh_chan":  # 3 does not divide MAX_CHAN=16
+            make_mesh(2, 3)
+        elif case == "devices":  # 8 devices do not split into chan=3
+            auto_mesh(8, 3)
+        else:  # a 6-channel batch on a 4-wide 'chan' axis
+            import dataclasses
 
-    calls = []
+            cut = {f.name: getattr(batch, f.name) for f in
+                   dataclasses.fields(batch)}
+            for k in ("code_s", "carr_s", "m0", "b0", "navbits", "gain"):
+                cut[k] = cut[k][:, :6]
+            for k in ("code_p", "carr_p", "t_base"):
+                cut[k] = cut[k][:, :, :6]
+            cut["ca_words"] = cut["ca_words"][:6]
+            synth_batch_sharded(type(batch)(**cut), 1000, auto_mesh(8, 4))
 
-    def recompute():
-        calls.append(1)
-        return FlakyDev(0)
 
-    out = _fetch_with_retry(FlakyDev(1), recompute, log=lambda s: None)
-    np.testing.assert_array_equal(out, np.arange(4))
-    assert len(calls) == 1
-
-    # Exhausted retries -> the error propagates.
-    with pytest.raises(XlaRuntimeError):
-        _fetch_with_retry(FlakyDev(9), lambda: FlakyDev(9), retries=1,
-                          log=lambda s: None)
-
-    # Non-device exceptions are not retried.
-    class Boom(Exception):
-        pass
-
-    class BadDev:
-        def __array__(self, dtype=None, copy=None):
-            raise Boom()
-
-    with pytest.raises(Boom):
-        _fetch_with_retry(BadDev(), recompute, log=lambda s: None)
-    assert len(calls) == 1  # recompute not called again
+def test_runner_rejects_unknown_impl(scenario):
+    with pytest.raises(ValueError, match="unknown impl"):
+        run_simulation(scenario, io.BytesIO(), impl="pallas")

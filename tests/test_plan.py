@@ -4,12 +4,7 @@ import numpy as np
 
 from gps_sdr_sim_tpu.constants import CA_SEQ_LEN, CODE_FREQ, MAX_CHAN
 from gps_sdr_sim_tpu.models.scenario import Segment
-from gps_sdr_sim_tpu.ops.plan import (
-    pad_epoch_axis,
-    pad_epochs,
-    plan_batch,
-    plan_epochs,
-)
+from gps_sdr_sim_tpu.ops.plan import pad_epoch_axis, plan_batch
 
 
 def _segment(E: int, fixed: bool = False) -> Segment:
@@ -45,31 +40,6 @@ def test_pad_epoch_axis_leaves_ca_words_alone():
     np.testing.assert_array_equal(padded.ca_words, db.ca_words)
     assert padded.gain.shape[0] == E + 8
     assert np.all(padded.gain[E:] == 0)
-
-    eb = plan_epochs(seg, 0, E, 1.0 / 1.0e6)
-    pe = pad_epochs(eb, E + 8)
-    assert pe.ca_words.shape == eb.ca_words.shape
-    assert pe.gain.shape[0] == E + 8
-
-
-def test_plan_batch_and_plan_epochs_share_step_quantization():
-    """Both planners must derive their kernel limbs from the same single
-    2^40 step quantization (the pallas==xla bit-exactness contract)."""
-    for fixed in (False, True):
-        seg = _segment(3, fixed=fixed)
-        delt = 1.0 / 1.0e6
-        db = plan_batch(seg, 0, 3, 100_000, delt)
-        eb = plan_epochs(seg, 0, 3, delt, compact=False)
-
-        def limbs16_from8(s8):
-            # bits [16, 64) of the 2^56-scaled step, as the kernel sees them
-            l0 = s8[..., 2] | (s8[..., 3] << 8)
-            l1 = s8[..., 4] | (s8[..., 5] << 8)
-            l2 = s8[..., 6] | (s8[..., 7] << 8)
-            return np.stack([l0, l1, l2], axis=-1)
-
-        np.testing.assert_array_equal(db.code_s, limbs16_from8(eb.code_s8))
-        np.testing.assert_array_equal(db.carr_s, limbs16_from8(eb.carr_s8))
 
 
 def test_streaming_scenario_matches_materialized():

@@ -211,35 +211,3 @@ def test_parity_roundtrip_random_words(seed):
         # Any single-bit flip must be rejected.
         bit = int(rng.integers(0, 30))
         assert not parity_ok(word ^ (1 << bit), d29, d30)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_nav_mask_table_matches_window_walk(seed):
-    """nav_masks (v5 kernel input) == the per-sample nav window walk.
-
-    The v5 kernel replaces the in-kernel walk (mg = m0 + M, bit index
-    floor((mg+0.5)/20), shift by bidx - b0 — gpssim.c:2233-2241) with a
-    gather of this host-built table; lane m must therefore equal the walk
-    at M = m for every in-window geometry, including the f32 rounding of
-    the bit-index division."""
-    from gps_sdr_sim_tpu.ops.synth_pallas import nav_masks
-
-    rng = np.random.default_rng(seed)
-    B, C = 5, 7
-    # m0 up to a full day of code periods; b0 always floor((m0+0.5)/20)
-    # rounded down to the window base the planner uses.
-    m0 = rng.integers(0, 864_000 * 100, (B, C)).astype(np.int32)
-    b0 = (np.floor((m0.astype(np.float32) + 0.5) / 20.0)
-          .astype(np.int32))
-    navbits = rng.integers(0, 1 << 31, (B, C)).astype(np.int32)
-    tbl = np.asarray(nav_masks(m0, b0, navbits))
-    assert tbl.shape == (B * C, 128)
-    for m in range(128):
-        mg = m0 + m
-        bidx = np.floor((mg.astype(np.float32) + 0.5) / 20.0).astype(
-            np.int64)
-        j = bidx - b0
-        in_window = (j >= 0) & (j <= 31)
-        walk = -((navbits >> np.clip(j, 0, 31)) & 1)
-        got = tbl[:, m].reshape(B, C)
-        assert np.array_equal(got[in_window], walk[in_window])

@@ -224,20 +224,6 @@ def test_dynamic_trajectory_tracking():
             assert abs(got - planned) < 5.0, (prn, t_ms, got, planned)
 
 
-def test_mxu_acquisition_matches_fft(scenario, iq, acq):
-    """The int8-matmul search must agree with the FFT search."""
-    from gps_sdr_sim_tpu.receiver import acquire_mxu
-
-    got = acquire_mxu(iq, FS, dopp_step=50.0, n_blocks=4)
-    by_prn = {a.prn: a for a in acq}
-    for g in got:
-        f = by_prn[g.prn]
-        assert g.detected == f.detected, (g, f)
-        if g.detected:
-            assert g.code_phase == f.code_phase, (g, f)
-            assert abs(g.doppler - f.doppler) < 20.0, (g, f)
-
-
 def test_acquisition_on_1bit_capture(scenario, iq, acq):
     """1-bit (sign-only) captures still acquire every visible satellite."""
     x1 = np.where(iq.real > 0, 1.0, -1.0) + 1j * np.where(iq.imag > 0,

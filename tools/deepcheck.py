@@ -11,7 +11,9 @@ checkpoint/resume design) and diffing per block.
 
 Usage:
   python tools/deepcheck.py --duration 23400 --samp-freq 1e6 \
-      --block-epochs 20 [--impl xla] [--json out.json]
+      --block-epochs 20 [--json out.json]
+
+Runs on JAX's default device; JAX_PLATFORMS=cpu pins it to the host.
 
 Block placement: one block at the start, one right after every expected
 ephemeris-set advance, plus evenly spaced filler blocks — the regions where
@@ -98,17 +100,9 @@ def main() -> int:
     ap.add_argument("--samp-freq", type=float, default=1.0e6)
     ap.add_argument("--block-epochs", type=int, default=20)
     ap.add_argument("--filler-blocks", type=int, default=6)
-    ap.add_argument("--impl", default="xla")
-    ap.add_argument("--backend", default="cpu", choices=("cpu", "default"),
-                    help="'cpu' pins JAX to the host; 'default' uses the "
-                         "session's default device (the TPU when present)")
     ap.add_argument("--json", default="")
     ns = ap.parse_args()
 
-    import jax
-
-    if ns.backend == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(ROOT))
     from gps_sdr_sim_tpu.constants import R2D
     from gps_sdr_sim_tpu.models.scenario import ScenarioConfig, build_scenario
@@ -154,7 +148,7 @@ def main() -> int:
     for (lo, hi), (blo, _bhi) in zip(blocks, ranges_bytes):
         buf = io.BytesIO()
         run_epoch_range(scn, buf, lo, hi, batch_epochs=ns.block_epochs,
-                        impl=ns.impl, log=lambda s: None)
+                        log=lambda s: None)
         a = np.frombuffer(buf.getvalue(), np.int16).astype(np.int32)
         b = np.frombuffer(bytes(kept[blo]), np.int16).astype(np.int32)
         assert a.size == b.size, (lo, hi, a.size, b.size)

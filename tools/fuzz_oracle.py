@@ -13,7 +13,7 @@ with FLOAT_CARR_PHASE undefined).
 
 Usage:
   python tools/fuzz_oracle.py [--cases 16] [--seed 0] [--json out.json]
-      [--impl xla|pallas] [--cpu]
+      [--cpu]
 
 Exit 0 = every case passed. The committed artifact is FUZZ_r02.json.
 """
@@ -253,18 +253,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--impl", default="xla", choices=("xla", "pallas"))
     ap.add_argument("--cpu", action="store_true",
                     help="force JAX_PLATFORMS=cpu for our CLI")
     ap.add_argument("--json", default="")
     ap.add_argument("--case-timeout", type=float, default=900.0,
-                    help="per-case wall limit for OUR CLI. On the TPU a "
-                         "novel (rate, fmt) shape pays a cold Mosaic "
-                         "compile through the remote service, observed "
-                         ">900 s in slow windows — pallas runs should "
-                         "pass 3600. One retry per case: a killed "
-                         "compile writes no cache entry, so the retry "
-                         "restarts it from scratch.")
+                    help="per-case wall limit for OUR CLI; one retry "
+                         "per case")
     ns = ap.parse_args()
 
     if shutil.which("gcc") is None or not (REF / "gpssim.c").exists():
@@ -285,8 +279,7 @@ def main() -> int:
             env = dict(os.environ)
             if ns.cpu:
                 env["JAX_PLATFORMS"] = "cpu"
-            argv_ours = case["argv"] + ["-o", str(ours_bin),
-                                        "--impl", ns.impl]
+            argv_ours = case["argv"] + ["-o", str(ours_bin)]
             if case["fixed_carr"]:
                 argv_ours += ["--carrier-phase", "fixed"]
             for attempt in (0, 1):
@@ -326,7 +319,7 @@ def main() -> int:
             if ns.json:  # incremental: a crash/kill keeps finished cases
                 pathlib.Path(ns.json).write_text(json.dumps({
                     "metric": "oracle_fuzz", "cases": ns.cases,
-                    "seed": ns.seed, "impl": ns.impl,
+                    "seed": ns.seed,
                     "completed": k + 1, "passed": n_pass,
                     "failed": n_fail, "skipped": n_skip,
                     "pass": n_fail == 0 and k + 1 == ns.cases,
@@ -334,7 +327,7 @@ def main() -> int:
 
     summary = {
         "metric": "oracle_fuzz", "cases": ns.cases, "seed": ns.seed,
-        "impl": ns.impl, "passed": n_pass, "failed": n_fail,
+        "passed": n_pass, "failed": n_fail,
         "skipped": n_skip, "pass": n_fail == 0, "detail": results,
     }
     if ns.json:

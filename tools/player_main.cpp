@@ -1,11 +1,11 @@
 // gps-sdr-player: stream a generated I/Q file through format conversion to
 // an output backend.
 //
-// Unified TPU-native replacement for the reference's per-vendor players
+// Unified replacement for the reference's per-vendor players
 // (player/bladeplayer.c, hackplayer.c, limeplayer.c, plutoplayer.c): the
 // format pipeline (1/8/16-bit input, 12-bit DAC rescale, 1-bit LUT
 // expansion, trailing-block padding) is identical; the radio backends are
-// compile-gated because no SDR SDK/hardware exists in the TPU environment.
+// compile-gated because no SDR SDK/hardware exists in the build environment.
 // The always-available backends are `file` (converted int16 stream, the
 // testable target) and `null` (throughput measurement).
 //

@@ -1,7 +1,7 @@
 // playerfmt: sample-format conversion + block streaming shared by all
 // SDR playback tools.
 //
-// TPU-native rebuild of the format handling common to the reference's
+// Rebuild of the format handling common to the reference's
 // player suite (player/bladeplayer.c, hackplayer.c, limeplayer.c,
 // plutoplayer.c): 1-bit LUT expansion (bladeplayer.c:190-194,246-253),
 // 16->12 / 8->12 / 16->8 rescaling (limeplayer.c:304-342), and the
@@ -9,8 +9,8 @@
 // (bladeplayer.c:218-295). Exposed with a C ABI so the Python framework
 // can drive it via ctypes.
 
-#ifndef GPS_SDR_SIM_TPU_PLAYERFMT_H_
-#define GPS_SDR_SIM_TPU_PLAYERFMT_H_
+#ifndef GPS_SDR_SIM_PLAYERFMT_H_
+#define GPS_SDR_SIM_PLAYERFMT_H_
 
 #include <stddef.h>
 #include <stdint.h>
@@ -71,4 +71,4 @@ int pf_stream(FILE* in, int in_bits, int out_shift, int16_t amplitude,
 }
 #endif
 
-#endif  // GPS_SDR_SIM_TPU_PLAYERFMT_H_
+#endif  // GPS_SDR_SIM_PLAYERFMT_H_

@@ -6,7 +6,7 @@
 // stack. Vendor libraries are compile-gated — `make -C tools` probes
 // pkg-config and defines HAVE_LIBBLADERF / HAVE_LIBHACKRF / HAVE_LIMESUITE
 // / HAVE_LIBIIO; selecting a backend whose SDK was absent at build time
-// fails with a clear message (no SDR hardware/SDKs exist in the TPU build
+// fails with a clear message (no SDR hardware/SDKs exist in the build
 // environment, so `file`/`null` are the testable targets — the complete
 // vendor client code still lives behind each guard, mirroring the
 // reference players).
